@@ -1,10 +1,10 @@
 // Native partial-order-alignment engine.
 //
 // The runtime half of the POA subsystem: graph storage, NW graph-vs-sequence
-// alignment, alignment fusion, topological packing for the TPU kernel, MSA
+// alignment, alignment fusion, topological packing for the device aligner, MSA
 // and consensus extraction.  Semantics are the spoa algorithm exactly as
 // specified by svscope_tpu/ops/poa.py (the NumPy reference); parity is
-// enforced by tests/test_native_poa.py, and the TPU device aligner
+// enforced by tests/test_native_poa.py, and the device aligner
 // (ops/poa_device.py) consumes the packed arrays produced here.
 //
 // C ABI (ctypes): all buffers caller-allocated int32/uint8.
@@ -653,7 +653,7 @@ int poa_align_only(void* h, const char* seq, int len, int32_t* out_nodes,
   return (int)aln.size();
 }
 
-// fuse an externally computed alignment (e.g. from the TPU kernel)
+// fuse an externally computed alignment (e.g. from the device aligner)
 void poa_fuse(void* h, const int32_t* nodes, const int32_t* spos, int n,
               const char* seq) {
   Graph& g = *(Graph*)h;

@@ -1,4 +1,4 @@
-"""svscope_tpu — a TPU-native somatic structural-variant engine.
+"""svscope_tpu — a JAX somatic structural-variant engine.
 
 A from-scratch re-design of the capabilities of negi2331026/SVScope
 (internally "TDScope"): somatic SV calling on tumor/normal paired ONT
@@ -11,15 +11,15 @@ long-read BAMs via
 followed by a random-forest confidence filter over whole-genome alignment
 features and VCF emission.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
 
   io/        host data plane: FASTA/FAI, BGZF, BAM reader/writer, alignment
              table (replaces bedtools/bamtobed/tabix/SQLite subprocesses)
   utils/     interval algebra (replaces bedtools merge/intersect), sequence
              encoding, misc
-  ops/       compute kernels: POA graph engine (numpy reference + Pallas
-             anti-diagonal wavefront DP), tiled NW/edit-distance kernel,
-             DBSCAN, Ward linkage
+  ops/       compute kernels: POA graph engine (NumPy reference, native C++
+             host engine, batched XLA device aligner and fused build),
+             batched NW/edit-distance kernel, DBSCAN, Ward linkage
   models/    categorical mixture model (batched JAX EM + BIC) and the frozen
              random-forest confidence filter as vectorized XLA tree traversal
   engine/    per-window somatic decision pipeline (DataMaker/Decision
@@ -29,7 +29,7 @@ Architecture (TPU-first, not a port):
   out/       VCF writers (Raw.bed, per-sample VCF, InterALNSVs.vcf,
              mergedSomatic, adjusted)
   parallel/  jax.sharding Mesh plumbing: shard candidate windows across
-             chips/hosts, gather records, resume journal
+             devices/hosts, gather records, resume journal
   viz/       per-window diagnostic figures (ScopeVIZ equivalent)
 
 Reference layer map: /root/reference SURVEY.md §1-§3.

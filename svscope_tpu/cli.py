@@ -5,13 +5,13 @@ DataPrepare, localGraph, localGraph_npz, AlnFeature, callsomaticSV, plus
 `adjustVCF` (the reference ships that step as a separate script,
 src/CheckInner-alignmentSVs.adjustVCF.py).
 
-Differences by design (TPU-native data plane):
+Differences by design (in-memory data plane):
   * no bedtools/bamtobed/bgzip/tabix/SQLite subprocesses — BAMs are read
     natively into in-memory alignment tables
   * the genome-window bed (-W) is optional: generated from the .fai when
     omitted
   * --device-dtype float32|float64 selects the EM precision (float64
-    matches the reference CPU numerics; float32 is the TPU fast path)
+    matches the reference CPU numerics; float32 is the fast path)
 """
 from __future__ import annotations
 
@@ -25,9 +25,9 @@ log = logging.getLogger("svscope_tpu.cli")
 
 
 def _device_poa_arg(args):
-    """--device-poa -> engine arg: 'host' forces the C++ engine (False),
-    omitted (None) lets run_local_graph pick by measured device latency."""
-    v = getattr(args, "device_poa", None)
+    """--device-poa -> engine arg: 'host' (the default) is the C++ engine
+    (False), 'xla'/'fused' name a device engine."""
+    v = getattr(args, "device_poa", "host")
     return False if v == "host" else v
 
 
@@ -57,10 +57,11 @@ def _load_tables(args):
 
 
 def _load_tables_with_bp(args):
-    """Tables + native breakpoint frames in one C++ pass (selection path).
+    """Tables + native breakpoint tables in one C++ pass (selection path).
 
     Falls back to tables-only (parse_windows then extracts in Python)."""
-    import pandas as pd
+    from .select.windows import BP_COLS
+    from .utils.table import concat
     try:
         from .native.bam import scan_with_breakpoints
         ts, tb, ns, nb = [], [], [], []
@@ -74,8 +75,7 @@ def _load_tables_with_bp(args):
             nb.append(b)
         from .io.bam import AlignmentTable
         return (AlignmentTable.concat(ts), AlignmentTable.concat(ns),
-                pd.concat(tb, ignore_index=True),
-                pd.concat(nb, ignore_index=True))
+                concat(tb, BP_COLS), concat(nb, BP_COLS))
     except Exception as exc:
         log.warning("native breakpoint scan failed (%s); Python fallback",
                     exc)
@@ -178,14 +178,8 @@ def cmd_local_graph_npz(args):
                 rows.append(line.rstrip("\n"))
                 done.add(":".join(line.split("\t")[0:3]))
     dtype = _em_dtype(args)
-    from .engine.localgraph import (_auto_device_poa, device_latency_guard,
-                                    process_window_batch)
-    # same watchdog + backend policy as run_local_graph (the npz replay
-    # path dispatches the identical device EM/POA batches)
-    device_latency_guard()
+    from .engine.localgraph import process_window_batch
     device_poa = _device_poa_arg(args)
-    if device_poa is None:
-        device_poa = _auto_device_poa()
     wins = [w for w in load_window_data(args.savedir)
             if ":".join(w.record.strip().split("\t")[0:3]) not in done]
     for off in range(0, len(wins), 256):
@@ -272,15 +266,13 @@ def cmd_adjust_vcf(args):
 def _common_bam_args(p, window_bed=True):
     if window_bed:
         p.add_argument("-w", "--windowBed", required=True)
-    p.add_argument("--device-poa", nargs="?", const="xla", default=None,
-                   choices=("fused", "xla", "pallas", "host"),
-                   help="POA alignment backend: 'xla'/'pallas' = per-read "
-                        "device alignment rounds with host fusion ('xla' "
-                        "when given bare), 'fused' = whole MSA build on "
-                        "device, one dispatch per window batch (explicit "
-                        "opt-in; see docs/PERF.md §5 for when it wins), "
-                        "'host' = C++ engine.  Omitted = auto by measured "
-                        "device latency")
+    p.add_argument("--device-poa", nargs="?", const="xla", default="host",
+                   choices=("fused", "xla", "host"),
+                   help="POA alignment backend: 'host' (default) = C++ "
+                        "engine; 'xla' = per-read device alignment rounds "
+                        "with host fusion (when given bare); 'fused' = "
+                        "whole MSA build on device, one dispatch per window "
+                        "batch (docs/PERF.md)")
     p.add_argument("--oversize-sharded", action="store_true",
                    help="align windows beyond the 2048-node/2048 bp device "
                         "buckets (giant tandem repeats) via the sequence-"
@@ -302,7 +294,7 @@ def _common_bam_args(p, window_bed=True):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="svscope-tpu",
-        description="TPU-native somatic SV caller (local graph-genome "
+        description="Somatic SV caller (local graph-genome "
                     "optimization + whole-genome alignment feature filter)")
     sub = parser.add_subparsers(dest="command")
 

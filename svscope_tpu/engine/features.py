@@ -26,12 +26,12 @@ import logging
 import os
 
 import numpy as np
-import pandas as pd
 
 from ..io.bam import AlignmentTable
 from ..models.forest import Forest
 from ..ops.nw import calculate_misscore
 from ..utils import intervals as iv
+from ..utils import table as tb
 
 log = logging.getLogger("svscope_tpu.features")
 
@@ -89,8 +89,9 @@ def window_info(table: AlignmentTable, chrom: str, start: int, end: int,
 
 
 def background_stats(table: AlignmentTable, windows, show_chrom_span=False):
-    """background equivalent (src/DataScanner.py:469-481): DataFrame keyed
-    'chrom_start-end'.
+    """background equivalent (src/DataScanner.py:469-481): a table
+    (utils.table) with one row per window, keyed 'chrom_start-end' in its
+    "window" column.
 
     The genome-grid case (show_chrom_span=False, the ~308k-window sweep) is
     fully vectorized: every (window, alignment) overlap pair is generated
@@ -102,33 +103,32 @@ def background_stats(table: AlignmentTable, windows, show_chrom_span=False):
     for (chrom, start, end) in windows:
         info = window_info(table, chrom, int(start), int(end),
                            show_chrom_span=show_chrom_span)
-        key = f"{chrom}_{start}-{end}"
-        if show_chrom_span:
-            rows.append([key, info[0], info[1], info[2], info[3]])
-        else:
-            rows.append([key, info[0], info[1]])
+        rows.append([f"{chrom}_{start}-{end}", *info])
     cols = (["window", "COV", "mapQRate", "chromSpan", "TotalReadID"]
             if show_chrom_span else ["window", "COV", "mapQRate"])
-    df = pd.DataFrame(rows, columns=cols)
-    df.index = df["window"]
-    return df
+    out = tb.from_rows(rows, cols)
+    for c in ("COV", "mapQRate", "chromSpan"):
+        if c in out:
+            out[c] = out[c].astype(np.float64)
+    return out
 
 
 def _background_stats_vectorized(table: AlignmentTable, windows,
-                                 mapq_cutoff: int = 5) -> pd.DataFrame:
+                                 mapq_cutoff: int = 5) -> dict:
     """Vectorized COV/mapQRate over an arbitrary window list.
 
     Per window w: group that window's overlapping alignment rows by read
     (start=min, end=max, mapQ=min over the rows IN the window), then
     COV = sum per-read clipped span / window length and mapQRate = fraction
     of reads with min mapQ < cutoff — windowInfo semantics exactly."""
-    win_df = pd.DataFrame(windows, columns=["chrom", "start", "end"])
-    keys = (win_df.chrom.astype(str) + "_" + win_df.start.astype(str)
-            + "-" + win_df.end.astype(str))
-    cov = np.full(len(win_df), np.nan)
-    mqr = np.full(len(win_df), np.nan)
+    w_chrom = np.array([str(w[0]) for w in windows], dtype=object)
+    w_start = np.array([int(w[1]) for w in windows], np.int64)
+    w_end = np.array([int(w[2]) for w in windows], np.int64)
+    keys = np.array([f"{c}_{s}-{e}" for c, s, e in windows], dtype=object)
+    cov = np.full(len(windows), np.nan)
+    mqr = np.full(len(windows), np.nan)
     name_codes = table.name_codes()
-    for chrom, wg in win_df.groupby("chrom", sort=False):
+    for chrom, w_idx in tb.group_rows(w_chrom):
         if chrom not in table._chrom_slices:
             continue
         lo, hi = table._chrom_slices[chrom]
@@ -136,16 +136,17 @@ def _background_stats_vectorized(table: AlignmentTable, windows,
         a_end = table.end[lo:hi]
         a_mapq = table.mapq[lo:hi]
         a_name = name_codes[lo:hi]
-        ws = wg.start.to_numpy(np.int64)
-        we = wg.end.to_numpy(np.int64)
+        ws = w_start[w_idx]
+        we = w_end[w_idx]
         worder = np.argsort(ws, kind="stable")
         ws_s, we_s = ws[worder], we[worder]
-        widx_s = wg.index.to_numpy()[worder]
+        widx_s = w_idx[worder]
         if not (np.diff(we_s) >= 0).all():
             # non-monotone window ends (irregular bed): per-window fallback
-            for wi, s_, e_ in zip(wg.index, wg.start, wg.end):
-                info = window_info(table, chrom, int(s_), int(e_))
-                cov[wi], mqr[wi] = info
+            for wi in w_idx:
+                cov[wi], mqr[wi] = window_info(table, chrom,
+                                               int(w_start[wi]),
+                                               int(w_end[wi]))
             continue
         # window j overlaps row i iff ws[j] < a_end[i] and we[j] > a_start[i]
         hi_w = np.searchsorted(ws_s, a_end, side="left")
@@ -158,26 +159,27 @@ def _background_stats_vectorized(table: AlignmentTable, windows,
         if len(pair_a) == 0:
             continue
         # reduce per (window, read): start min, end max, mapq min
-        grp = pd.DataFrame({
-            "w": pair_w, "r": a_name[pair_a],
-            "s": a_start[pair_a], "e": a_end[pair_a], "q": a_mapq[pair_a]})
-        agg = grp.groupby(["w", "r"], sort=False).agg(
-            s=("s", "min"), e=("e", "max"), q=("q", "min")).reset_index()
-        wn = agg.w.to_numpy()
-        ov = (np.minimum(agg.e.to_numpy(), we_s[wn])
-              - np.maximum(agg.s.to_numpy(), ws_s[wn]))
+        key = pair_w.astype(np.int64) * (int(name_codes.max()) + 1) \
+            + a_name[pair_a]
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        first = np.concatenate([[0], np.flatnonzero(ks[1:] != ks[:-1]) + 1])
+        pa = pair_a[order]
+        g_s = np.minimum.reduceat(a_start[pa], first)
+        g_e = np.maximum.reduceat(a_end[pa], first)
+        g_q = np.minimum.reduceat(a_mapq[pa], first)
+        wn = pair_w[order][first]
+        ov = np.minimum(g_e, we_s[wn]) - np.maximum(g_s, ws_s[wn])
         ov = np.clip(ov, 0, None)
         n_reads = np.bincount(wn, minlength=len(ws_s))
         cov_sum = np.bincount(wn, weights=ov, minlength=len(ws_s))
-        low_q = np.bincount(wn, weights=(agg.q.to_numpy() < mapq_cutoff),
+        low_q = np.bincount(wn, weights=(g_q < mapq_cutoff),
                             minlength=len(ws_s))
         has = n_reads > 0
         wlen = np.maximum(we_s - ws_s, 1)
         cov[widx_s[has]] = cov_sum[has] / wlen[has]
         mqr[widx_s[has]] = low_q[has] / n_reads[has]
-    df = pd.DataFrame({"window": keys, "COV": cov, "mapQRate": mqr})
-    df.index = df["window"]
-    return df
+    return {"window": keys, "COV": cov, "mapQRate": mqr}
 
 
 def call_allele_freq(som_reads_field: str, germ_reads_field: str) -> str:
@@ -192,19 +194,30 @@ def call_allele_freq(som_reads_field: str, germ_reads_field: str) -> str:
     return ";".join(str(c / n) for c in som_counts)
 
 
+def _raw_rows(raw_bed_path: str) -> list[list[str]]:
+    """Raw.bed rows (RAW_COLS, string fields), exact duplicates dropped."""
+    return tb.read_rows(raw_bed_path)
+
+
+def _window_key(row) -> str:
+    return f"{row[0]}_{row[1]}-{row[2]}"
+
+
+MISS_COLS = ["chrom", "start", "end", "window", "somSupportReadID",
+             "germSupportReadID", "MisScore", "AF"]
+
+
 def misscore_pipe(raw_bed_path: str, use_device: bool | None = None
-                  ) -> pd.DataFrame:
+                  ) -> list[list]:
     """MisScorePipe (src/PairwiseCompare.py:76-86): per
-    'NormalOutput|EMOutput' row, MisScore + AF.  On TPU the som x germ
-    alignment stats run through the batched NW kernel (ops/nw_batch)."""
-    df = pd.read_csv(raw_bed_path, sep="\t", header=None, names=RAW_COLS)
-    som = df[df.Label == "NormalOutput|EMOutput"].copy()
-    out_cols = ["chrom", "start", "end", "window", "somSupportReadID",
-                "germSupportReadID", "MisScore", "AF"]
-    if len(som) == 0:
-        return pd.DataFrame(columns=out_cols)
-    som["window"] = (som.chrom + "_" + som.start.astype(str) + "-"
-                     + som.end.astype(str))
+    'NormalOutput|EMOutput' row, MisScore + AF, as rows of MISS_COLS.  On
+    an accelerator the som x germ alignment stats run through the batched
+    NW kernel (ops/nw_batch)."""
+    with open(raw_bed_path) as f:
+        som = [l.rstrip("\n").split("\t") for l in f if l.strip()]
+    som = [r for r in som if r[9] == "NormalOutput|EMOutput"]
+    if not som:
+        return []
     if use_device is None:
         import jax
         use_device = jax.default_backend() not in ("cpu",)
@@ -212,23 +225,21 @@ def misscore_pipe(raw_bed_path: str, use_device: bool | None = None
         from ..ops.nw import pick_misscore
         from ..ops.nw_batch import misscore_batch
         pairs, spans = [], []
-        for s, g in zip(som.SomSeq, som.GermSeq):
-            row_pairs = [(a, b) for a in s.split(";") for b in g.split(";")]
+        for r in som:
+            row_pairs = [(a, b) for a in r[3].split(";")
+                         for b in r[6].split(";")]
             spans.append((len(pairs), len(row_pairs)))
             pairs.extend(row_pairs)
         raw = misscore_batch(pairs)
         signed = [int(raw[i]) if len(pairs[i][0]) >= len(pairs[i][1])
                   else -int(raw[i]) for i in range(len(pairs))]
-        som["MisScore"] = [pick_misscore(signed[o:o + n]) for o, n in spans]
+        miss = [pick_misscore(signed[o:o + n]) for o, n in spans]
     else:
-        som["MisScore"] = [
-            calculate_misscore(s.split(";"), g.split(";"))
-            for s, g in zip(som.SomSeq, som.GermSeq)]
-    som["AF"] = [call_allele_freq(s, g)
-                 for s, g in zip(som.SomReads, som.GermReads)]
-    som = som.rename(columns={"SomReads": "somSupportReadID",
-                              "GermReads": "germSupportReadID"})
-    return som[out_cols]
+        miss = [calculate_misscore(r[3].split(";"), r[6].split(";"))
+                for r in som]
+    return [[r[0], int(r[1]), int(r[2]), _window_key(r), r[4], r[7],
+             int(m), call_allele_freq(r[4], r[7])]
+            for r, m in zip(som, miss)]
 
 
 def run_aln_feature(raw_bed_path: str, genome_windows, t_table, n_table,
@@ -237,84 +248,78 @@ def run_aln_feature(raw_bed_path: str, genome_windows, t_table, n_table,
     """AlnFeature feature assembly + RF scoring (src/SVscope.py:241-317).
 
     Writes <T>.Somatic.bed and RandomForestResult.tsv; returns the ReadPool
-    DataFrame (with yprob/y_hat) for the VCF stage."""
+    table (utils.table, with yprob/y_hat) for the VCF stage."""
     os.makedirs(savedir, exist_ok=True)
-    raw = pd.read_csv(raw_bed_path, sep="\t", header=None, names=RAW_COLS)
-    em = raw[raw.Label.str.contains("EMOutput")].drop_duplicates()
-    sv_windows = [(r.chrom, r.start, r.end) for r in em.itertuples()]
+    raw = _raw_rows(raw_bed_path)
+    em = [r for r in raw if "EMOutput" in r[9]]
+    sv_windows = [(r[0], int(r[1]), int(r[2])) for r in em]
 
     log.info("background stats over %d genome windows", len(genome_windows))
     bg_t = background_stats(t_table, genome_windows)
     bg_n = background_stats(n_table, genome_windows)
     sv_t = background_stats(t_table, sv_windows, show_chrom_span=True)
     sv_n = background_stats(n_table, sv_windows, show_chrom_span=True)
+    by_win = []
     for sv, bg in ((sv_t, bg_t), (sv_n, bg_n)):
-        cov = bg.COV.dropna()
-        mq = bg.mapQRate.dropna()
-        sv["COV_Zscore"] = (sv.COV - cov.mean()) / np.std(cov)
-        sv["mapQ_Zscore"] = (sv.mapQRate - mq.mean()) / np.std(mq)
-    sv_t = sv_t[~sv_t.index.duplicated()]
-    sv_n = sv_n[~sv_n.index.duplicated()]
+        cov = bg["COV"][~np.isnan(bg["COV"])]
+        mq = bg["mapQRate"][~np.isnan(bg["mapQRate"])]
+        sv["COV_Zscore"] = (sv["COV"] - cov.mean()) / np.std(cov)
+        sv["mapQ_Zscore"] = (sv["mapQRate"] - mq.mean()) / np.std(mq)
+        first = {}                          # first row per window key
+        for i, w in enumerate(sv["window"]):
+            first.setdefault(w, i)
+        by_win.append(first)
+    row_t, row_n = by_win
 
-    comp = misscore_pipe(raw_bed_path).drop_duplicates(
-        subset=["chrom", "start", "end", "window", "somSupportReadID",
-                "germSupportReadID", "MisScore", "AF"])
-    comp["ABSMisScore"] = comp.MisScore.abs()
-    comp.index = comp.window
+    comp, seen = [], set()
+    for r in misscore_pipe(raw_bed_path):
+        if tuple(r) not in seen:
+            seen.add(tuple(r))
+            comp.append(r + [abs(r[6])])
     somatic_bed = os.path.join(savedir, f"{t_sample_id}.Somatic.bed")
-    comp.to_csv(somatic_bed, sep="\t", index=False, header=False)
+    with open(somatic_bed, "w") as f:
+        for r in comp:
+            f.write("\t".join(tb.fmt(v) for v in r) + "\n")
+    comp_by_win = {r[3]: r for r in comp}
 
-    em2 = raw[raw.Label == "NormalOutput|EMOutput"].drop_duplicates().copy()
-    if len(em2):
-        em2["window"] = (em2.chrom.astype(object) + "_"
-                         + em2.start.astype(str) + "-"
-                         + em2.end.astype(str))
-        em2.index = em2.window
-        windows = np.intersect1d(comp.index.to_numpy(),
-                                 em2.index.to_numpy())
-    else:
-        windows = np.empty(0, dtype=object)
+    em2 = {_window_key(r): r for r in raw if r[9] == "NormalOutput|EMOutput"}
+    windows = sorted(set(comp_by_win) & set(em2))
 
     rows = []
     for w in windows:
-        r = em2.loc[w]
+        r = em2[w]
         som_names = [a.split("|")[-1]
-                     for a in r.SomReads.replace(";", ",").split(",")]
+                     for a in r[4].replace(";", ",").split(",")]
         germ_names = [a.split("|")[-1]
-                      for a in r.GermReads.replace(";", ",").split(",")]
+                      for a in r[7].replace(";", ",").split(",")]
         adapt = som_names + germ_names
-        tot_t = sv_t.loc[w, "TotalReadID"]
-        tot_n = sv_n.loc[w, "TotalReadID"]
-        mq_t = sv_t.loc[w, "mapQRate"]
-        mq_n = sv_n.loc[w, "mapQRate"]
-        den_t = len(tot_t) * (1 - mq_t)
-        den_n = len(tot_n) * (1 - mq_n)
-        rows.append({
-            "window": w,
-            "COV_Tumor": sv_t.loc[w, "COV_Zscore"],
-            "mapQ_Tumor": sv_t.loc[w, "mapQ_Zscore"],
-            "COV_Normal": sv_n.loc[w, "COV_Zscore"],
-            "mapQ_Normal": sv_n.loc[w, "mapQ_Zscore"],
-            "ABSMisScore": comp.loc[w, "ABSMisScore"],
-            "chromSpan_Tumor": sv_t.loc[w, "chromSpan"],
-            "chromSpan_Normal": sv_n.loc[w, "chromSpan"],
-            "AdaptRatio_T": (len(np.intersect1d(adapt, tot_t)) / den_t
-                             if den_t > 0 else 0.0),
-            "AdaptRatio_N": (len(np.intersect1d(adapt, tot_n)) / den_n
-                             if den_n > 0 else 0.0),
-            "SupportReadSpanRatio": t_table.spanchr_ratio(som_names),
-        })
-    pool = pd.DataFrame(rows)
-    if len(pool):
-        pool.index = pool.window
+        it, jn = row_t[w], row_n[w]
+        tot_t = sv_t["TotalReadID"][it]
+        tot_n = sv_n["TotalReadID"][jn]
+        den_t = len(tot_t) * (1 - sv_t["mapQRate"][it])
+        den_n = len(tot_n) * (1 - sv_n["mapQRate"][jn])
+        rows.append([
+            w,
+            sv_t["COV_Zscore"][it], sv_t["mapQ_Zscore"][it],
+            sv_n["COV_Zscore"][jn], sv_n["mapQ_Zscore"][jn],
+            comp_by_win[w][8],
+            sv_t["chromSpan"][it], sv_n["chromSpan"][jn],
+            (len(np.intersect1d(adapt, tot_t)) / den_t
+             if den_t > 0 else 0.0),
+            (len(np.intersect1d(adapt, tot_n)) / den_n
+             if den_n > 0 else 0.0),
+            t_table.spanchr_ratio(som_names),
+        ])
+    pool = tb.from_rows(rows, ["window"] + RF_FEATURES)
+    if rows:
         forest = forest or Forest.from_npz()
-        X = pool[RF_FEATURES].to_numpy(np.float64)
-        proba = forest.predict_proba(X)
-        pool["yprob"] = proba[:, 1]
+        X = np.stack([pool[c].astype(np.float64) for c in RF_FEATURES], 1)
+        pool["yprob"] = forest.predict_proba(X)[:, 1]
         pool["y_hat"] = forest.predict(X)
     else:
-        pool = pd.DataFrame(columns=["window"] + RF_FEATURES
-                            + ["yprob", "y_hat"])
+        pool["yprob"] = np.empty(0)
+        pool["y_hat"] = np.empty(0)
     rf_out = os.path.join(savedir, "RandomForestResult.tsv")
-    pool.to_csv(rf_out, sep="\t")
+    tb.write_tsv(rf_out, pool, ["window"] + RF_FEATURES + ["yprob", "y_hat"],
+                 index="window")
     return pool, somatic_bed, rf_out

@@ -10,7 +10,7 @@ Design: BAM records are parsed once into (a) lightweight `BamRecord`
 objects for per-window sequence extraction and (b) an `AlignmentTable` —
 columnar NumPy arrays (one row per alignment record, including secondary and
 supplementary) that serves every bed.gz/tabix/SQLite role in-memory.  This is
-host-side IO, deliberately not on TPU; a C++ streaming decoder can drop in
+host-side IO, deliberately not on the device; a C++ streaming decoder can drop in
 behind the same API for whole-genome scale (native/).
 """
 from __future__ import annotations
@@ -302,12 +302,14 @@ class AlignmentTable:
         return len(self.start)
 
     def name_codes(self) -> np.ndarray:
-        """Factorized read-name codes (int64, same order as the rows),
-        built once and cached — the WGS background sweep re-factorized
-        ~10M object strings on every call otherwise."""
+        """Read-name codes (int64, one per row; equal names share a code),
+        built once and cached — the WGS background sweep re-coded ~10M
+        object strings on every call otherwise."""
         if getattr(self, "_name_codes", None) is None:
-            import pandas as pd
-            self._name_codes = pd.factorize(pd.Series(self.name))[0]
+            codes: dict = {}
+            self._name_codes = np.fromiter(
+                (codes.setdefault(n, len(codes)) for n in self.name),
+                np.int64, len(self.name))
         return self._name_codes
 
     def cig_arrays(self):

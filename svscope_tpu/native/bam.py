@@ -123,12 +123,11 @@ def scan_alignment_table(path: str, threads: int = 4):
 
 def scan_with_breakpoints(path: str, indel_cutoff: int = 40,
                           clip_cutoff: int = 100):
-    """(AlignmentTable, breakpoint DataFrame) in one native pass.
+    """(AlignmentTable, breakpoint table) in one native pass.
 
-    The breakpoint frame matches select.breakpoints.span_breakpoints row
+    The breakpoint table (utils.table: column -> array) matches select.breakpoints.span_breakpoints row
     for row (parity-tested) — the whole-genome CIGAR parse at C++ speed.
     """
-    import pandas as pd
     from ..io.bam import AlignmentTable
     l = lib()
     h = l.bam_scan_open_path(path.encode(), 0, 4)
@@ -154,9 +153,11 @@ def scan_with_breakpoints(path: str, indel_cutoff: int = 40,
                            (flag & 0x10) != 0, cig_list)
     names_arr = np.array(name_list, dtype=object)
     type_names = np.array(["DEL", "INS", "CLIP"], dtype=object)
-    ref_region = [f"{chrom_arr[i]}:{start[i]}-{end[i]}" for i in rec_idx]
-    read_region = [f"{a}-{b}" for a, b in zip(cols[4], cols[5])]
-    bp = pd.DataFrame({
+    ref_region = np.array([f"{chrom_arr[i]}:{start[i]}-{end[i]}"
+                           for i in rec_idx], dtype=object)
+    read_region = np.array([f"{a}-{b}" for a, b in zip(cols[4], cols[5])],
+                           dtype=object)
+    bp = {
         "chrom": chrom_arr[rec_idx],
         "ref_start": cols[0],
         "ref_end": cols[1],
@@ -168,7 +169,7 @@ def scan_with_breakpoints(path: str, indel_cutoff: int = 40,
         "mapq": mapq[rec_idx],
         "strand": np.where((flag[rec_idx] & 0x10) != 0, "-", "+"),
         "bp_type": type_names[bp_type],
-    })
+    }
     return table, bp
 
 

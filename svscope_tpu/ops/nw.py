@@ -9,8 +9,7 @@ depends on traceback order; we fix the convention diagonal > up > left
 (match preferred), which matches the common-case behavior.
 
 The score DP row is vectorized with the same cummax trick as the POA
-kernel; a Pallas tiled anti-diagonal version provides the batched device
-path (ops/nw_pallas.py).
+kernel; ops/nw_batch.py runs the batched device version in XLA.
 """
 from __future__ import annotations
 

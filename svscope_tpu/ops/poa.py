@@ -25,8 +25,8 @@ Invariants guaranteed (tested in tests/test_poa.py):
 
 The DP inner loop is vectorized over the sequence axis with a cummax trick
 for the intra-row gap dependency, giving O(nodes) NumPy ops per sequence.
-The batched TPU path implements the same recurrence as an anti-diagonal
-wavefront Pallas kernel (ops/poa_pallas.py).
+The batched device path (ops/poa_device.py) implements the same
+recurrence in XLA, vectorized over windows.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Sequence-sharded POA wavefront: one oversized window's graph-vs-read DP
 pipelined across the device mesh.
 
-The batched aligners (ops/poa_device, ops/poa_pallas) make *windows* the
-parallel axis and keep each DP on one chip; windows beyond their buckets
+The batched aligner (ops/poa_device) makes *windows* the parallel axis and
+keeps each DP on one device; windows beyond their buckets
 (giant tandem repeats: >2048 graph nodes or >2048 bp reads) previously fell
 back to the host int32 path.  This module is the SURVEY.md §5 "long-context"
 row: the moral equivalent of ring attention for DP wavefronts.
@@ -158,12 +158,8 @@ def _wavefront_shard(chars, preds, sinks, n_nodes, seq_sh, seq_len,
 
 
 def _shard_wrap(fn, mesh, specs):
-    try:
-        from jax import shard_map
-        return shard_map(fn, mesh=mesh, check_vma=False, **specs)
-    except (ImportError, TypeError):         # older jax API
-        from jax.experimental.shard_map import shard_map as shard_map_old
-        return shard_map_old(fn, mesh=mesh, check_rep=False, **specs)
+    from jax import shard_map
+    return shard_map(fn, mesh=mesh, check_vma=False, **specs)
 
 
 @functools.partial(jax.jit,

@@ -12,7 +12,7 @@ import os
 import re
 import time
 
-import pandas as pd
+from ..utils import table as tb
 
 _INFO = (
     '##INFO=<ID=SVTYPE,Number=1,Type=String,Description="Type of structural variant">\n'
@@ -59,28 +59,26 @@ def bed2vcf(raw_bed: str, somatic_bed: str, model_tsv: str, out_vcf: str,
             vcf.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\t"
                       f"FORMAT\t{tumor_id}\n")
         return out_vcf
-    df_raw = pd.read_csv(raw_bed, sep="\t", header=None).drop_duplicates()
-    df_raw["window"] = (df_raw[0] + "_" + df_raw[1].astype(str) + "-"
-                        + df_raw[2].astype(str))
-    df_raw.index = df_raw["window"]
-    df_som = pd.read_csv(somatic_bed, sep="\t", header=None).drop_duplicates()
-    df_som.index = df_som[3]
-    df_model = pd.read_csv(model_tsv, sep="\t", index_col=0)
+    df_raw = {f"{r[0]}_{r[1]}-{r[2]}": r for r in tb.read_rows(raw_bed)}
+    df_som = {r[3]: r for r in tb.read_rows(somatic_bed)}
+    head, model_rows = tb.read_tsv(model_tsv)
+    i_prob, i_hat = head.index("yprob"), head.index("y_hat")
     write_inner_header(reference + ".fai", out_vcf, reference)
     with open(out_vcf, "a") as vcf:
         vcf.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
                   f"{tumor_id}\n")
-        for w in df_model.index:
-            raw = df_raw.loc[w]
-            som = df_som.loc[w]
-            chrom, start, end = raw[0], str(raw[1]), raw[2]
+        for model in model_rows:
+            w = model[0]
+            raw = df_raw[w]
+            som = df_som[w]
+            chrom, start, end = raw[0], raw[1], raw[2]
             support_reads = som[4].split(";")[0]
             somatic_seq = ",".join(raw[3].split(";"))
             germline_seq = ",".join(raw[6].split(";"))
-            svlen = int(som.iloc[-3])
-            af = som.iloc[-2]
-            yprob = df_model.loc[w, "yprob"]
-            yhat = df_model.loc[w, "y_hat"]
+            svlen = int(som[-3])
+            af = som[-2]
+            yprob = model[i_prob]
+            yhat = model[i_hat]
             svtype = "MisAlign"
             if svlen >= 50:
                 svtype = "INS"

@@ -2,7 +2,7 @@
 
 The reference's only scale-out is a 6-process pool over candidate windows
 (src/SVscope.py:158-161).  Here the same axis — windows — is sharded over
-TPU chips: installing a 1-D ("dp",) `jax.sharding.Mesh` makes every
+devices: installing a 1-D ("dp",) `jax.sharding.Mesh` makes every
 batched device dispatch in the engine (the 45-slot folded EM in
 models/mixture and the per-round POA aligner batches in ops/poa_batch)
 place its batch axis across the mesh.  Windows are independent, so the

@@ -1,7 +1,7 @@
 """Device-mesh plumbing: sharded batched EM over (windows x reads).
 
 The reference's only parallelism is a 6-process pool over windows
-(src/SVscope.py:158-161).  The TPU-native replacement is a 2-D
+(src/SVscope.py:158-161).  The replacement here is a 2-D
 `jax.sharding.Mesh`:
 
   * axis "dp" — data parallel over candidate windows (the embarrassing
@@ -10,10 +10,11 @@ The reference's only parallelism is a 6-process pool over windows
     the E-step is row-independent given theta, and the M-step's
     sufficient statistics are read-axis sums, reduced with
     `jax.lax.psum` over "mp" (so one giant window can be spread over
-    chips — the analog of tensor parallelism for this workload)
+    devices — the analog of tensor parallelism for this workload)
 
 Multi-host: every process feeds its local shard of the window stream
-(parallel/shard.py); collectives ride ICI within a host and DCN across.
+(parallel/shard.py).  The mesh follows the algorithm's axes only; the
+devices of a host are joined all to all.
 """
 from __future__ import annotations
 
@@ -26,13 +27,10 @@ import jax.numpy as jnp
 from ..utils.jaxcfg import enable_cache
 
 enable_cache()
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.7
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
-from ..models.mixture import ALPHA, MAX_K, NSTEP, EPS, NEG_BIG
+from ..models.mixture import ALPHA, EPS, HIGHEST, MAX_K, NEG_BIG, NSTEP
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -62,7 +60,8 @@ def _local_em_scan(x_oh, read_mask, gamma0, kmask, n_true, nsteps):
         g = gamma * read_mask[..., None]
         denom_local = g.sum(axis=1)                       # (B, K)
         denom = jax.lax.psum(denom_local, "mp")
-        counts_local = jnp.einsum("bnk,bnfa->bkfa", g, x_oh)
+        counts_local = jnp.einsum("bnk,bnfa->bkfa", g, x_oh,
+                                  precision=HIGHEST)
         counts = jax.lax.psum(counts_local, "mp")
         pi = denom / n_true[:, None]
         theta = counts / jnp.where(denom == 0, 1.0, denom)[..., None, None]
@@ -70,7 +69,7 @@ def _local_em_scan(x_oh, read_mask, gamma0, kmask, n_true, nsteps):
 
     def e_step(pi, theta):
         logt = jnp.log(jnp.clip(theta, EPS, 1 - EPS)).reshape(B, MAX_K, -1)
-        M = jnp.einsum("bnf,bkf->bnk", x_flat, logt)
+        M = jnp.einsum("bnf,bkf->bnk", x_flat, logt, precision=HIGHEST)
         M = M + jnp.log(jnp.clip(pi, EPS, 1 - EPS))[:, None, :]
         M = jnp.where(kmask[:, None, :], M, NEG_BIG)
         diff = jnp.clip(M[..., :, None] - M[..., None, :], -700.0, 700.0)
@@ -82,7 +81,7 @@ def _local_em_scan(x_oh, read_mask, gamma0, kmask, n_true, nsteps):
         gamma, M = e_step(pi, theta)
         # expected complete log-lik (local rows then psum)
         logt = jnp.log(jnp.clip(theta, EPS, 1 - EPS)).reshape(B, MAX_K, -1)
-        per_k = jnp.einsum("bnf,bkf->bnk", x_flat, logt)
+        per_k = jnp.einsum("bnf,bkf->bnk", x_flat, logt, precision=HIGHEST)
         per_k = per_k + jnp.log(jnp.clip(pi, EPS, 1 - EPS))[:, None, :]
         lik_local = ((per_k * gamma).sum(axis=2) * read_mask).sum(axis=1)
         lik = jax.lax.psum(lik_local, "mp")

@@ -1,13 +1,13 @@
 """Multi-host window-stream sharding for localGraph.
 
-The reference is single-node (SURVEY.md §2.4); the TPU-native scale-out
+The reference is single-node (SURVEY.md §2.4); the scale-out here
 shards the candidate-window stream across hosts: every process runs the
 batched engine on a block-cyclic slice (block-cyclic because window cost
 correlates with genome position — hot repeat regions cluster), writes a
 per-host shard journal, and host 0 merges the sorted Raw.bed.  Reference
 FASTA/annotations are replicated per host; device collectives stay inside
 the per-host mesh (parallel/mesh.py); only the final record gather touches
-the filesystem/DCN.
+the filesystem.
 
 `jax.distributed.initialize` is optional — process_index/count can be
 injected for tests or external launchers (SLURM, GKE).

@@ -11,8 +11,7 @@ from __future__ import annotations
 import os
 import time
 
-import pandas as pd
-
+from ..utils import table as tb
 from .breakpoints import bp_arrange, chrom_offsets, sort_breakpoint
 
 _INFO = (
@@ -55,14 +54,20 @@ def _cluster_groups(path: str, offsets):
     (BP1, BP2, read_names, n_reads)."""
     if not os.path.exists(path):
         return []
-    df = pd.read_csv(path, sep="\t")
-    if len(df) == 0:
+    head, rows = tb.read_tsv(path)
+    if not rows:
         return []
+    i_bp, i_read, i_lab = (head.index(c) for c in
+                           ("BPsite", "readID", "labels"))
+    groups: dict[int, list] = {}
+    for r in rows:
+        groups.setdefault(int(r[i_lab]), []).append(r)
     out = []
-    for lab, g in df.groupby("labels"):
-        sortbp = [sort_breakpoint(s, offsets) for s in g.BPsite]
+    for lab in sorted(groups):
+        g = groups[lab]
+        sortbp = [sort_breakpoint(r[i_bp], offsets) for r in g]
         bp1, bp2 = bp_arrange(sortbp)
-        reads = ",".join(sorted(set(g.readID)))
+        reads = ",".join(sorted({r[i_read] for r in g}))
         out.append((bp1, bp2, reads, len(reads.split(","))))
     return out
 

@@ -33,16 +33,21 @@ import logging
 import os
 
 import numpy as np
-import pandas as pd
 
 from ..io.bam import AlignmentTable, parse_cigar_string
 from ..ops.dbscan import dbscan_labels
 from ..utils import intervals as iv
+from ..utils import table as tb
 from .breakpoints import (BreakpointRows, chrom_offsets, classify_clip_pairs,
                           encode_site, non_unique_reads, sort_breakpoint,
                           span_breakpoints)
 
 log = logging.getLogger("svscope_tpu.select")
+
+BP_COLS = ["chrom", "ref_start", "ref_end", "read_id", "read_start",
+           "read_end", "ref_region", "read_region", "mapq", "strand",
+           "bp_type"]
+CLIP_COLS = ["BPsite", "readID", "BPType", "mapQ", "Site", "DataLabel"]
 
 
 # ---------------------------------------------------------------------------
@@ -53,12 +58,12 @@ def parse_windows(table: AlignmentTable, fai_path: str, data_label: str,
                   mapq: int = 5, rm_chroms=("chrM",), bp_df=None):
     """ParseWindows equivalent (:266-331).
 
-    bp_df: precomputed breakpoint frame (native scanner,
+    bp_df: precomputed breakpoint table (native scanner,
     native/bam.scan_with_breakpoints) — row-identical to the Python
     extraction below, just fast.
 
-    Returns dict with DataFrames: del_bp, ins_bp, clip_others, clip_inv,
-    clip_tra (each with Site + DataLabel columns), clip_groups.
+    Returns dict of tables (utils.table): del_bp, ins_bp (breakpoint
+    columns), clip_others, clip_inv, clip_tra (CLIP_COLS).
     """
     if bp_df is not None:
         df = bp_df
@@ -70,48 +75,49 @@ def parse_windows(table: AlignmentTable, fai_path: str, data_label: str,
                              int(table.mapq[i]),
                              "-" if table.strand_rev[i] else "+",
                              table.cigar[i], out=bp)
-        df = pd.DataFrame(bp.asarrays())
-    if len(df) == 0:
-        empty = pd.DataFrame(columns=["BPsite", "readID", "BPType", "mapQ",
-                                      "Site", "DataLabel"])
-        z = pd.DataFrame(columns=df.columns)
+        df = bp.asarrays()
+    if tb.n_rows(df) == 0:
+        z = tb.concat([], BP_COLS)
+        empty = tb.concat([], CLIP_COLS)
         return dict(del_bp=z, ins_bp=z, clip_others=empty, clip_inv=empty,
                     clip_tra=empty)
-    df = df[~df.chrom.isin(rm_chroms)]
+    df = tb.take(df, ~np.isin(df["chrom"], list(rm_chroms)))
     # non-unique-alignment reads: fragments overlap > 100 bp on the read
-    uniq_regions = (df.ref_region + "|" + df.read_region)
     per_read = {}
-    for rid, comb in zip(df.read_id, uniq_regions):
-        per_read.setdefault(rid, set()).add(comb)
+    for rid, rr, qr in zip(df["read_id"], df["ref_region"],
+                           df["read_region"]):
+        per_read.setdefault(rid, set()).add(rr + "|" + qr)
     nonuniq = {rid for rid, combs in per_read.items()
                if non_unique_reads([c.split("|")[-1] for c in sorted(combs)])}
-    del_bp = df[(df.bp_type == "DEL") & (df.mapq >= mapq)]
-    ins_bp = df[(df.bp_type == "INS") & (df.mapq >= mapq)]
-    clip = df[(df.bp_type == "CLIP") & (df.mapq > 0)
-              & ~df.read_id.isin(nonuniq)].sort_values(
-                  ["read_id", "read_start"], kind="stable")
+    bpt, mq = df["bp_type"], df["mapq"]
+    del_bp = tb.take(df, (bpt == "DEL") & (mq >= mapq))
+    ins_bp = tb.take(df, (bpt == "INS") & (mq >= mapq))
+    clip = tb.take(df, (bpt == "CLIP") & (mq > 0)
+                   & ~np.isin(df["read_id"], list(nonuniq)))
+    # by (read, read_start), ties in table order
+    rid = clip["read_id"].astype(str)
+    clip = tb.take(clip, np.lexsort((clip["read_start"], rid)))
     records = []
-    for rid, g in clip.groupby("read_id", sort=True):
+    for read, rows in tb.group_rows(clip["read_id"].astype(str)):
         # >1 CLIP rows (row count, not unique regions — :307)
-        if len(g) <= 1:
+        if len(rows) <= 1:
             continue
+        g = tb.take(clip, np.sort(rows))
         records.extend(classify_clip_pairs(
-            list(g.chrom), list(g.ref_start), list(g.read_start),
-            list(g.read_region), list(g.ref_region), list(g.strand),
-            list(g.mapq), rid))
+            g["chrom"].tolist(), g["ref_start"].tolist(),
+            g["read_start"].tolist(), g["read_region"].tolist(),
+            g["ref_region"].tolist(), g["strand"].tolist(),
+            g["mapq"].tolist(), str(read)))
     offsets = chrom_offsets(fai_path)
-    rows = [r.split("|") for r in records]
-    clip_df = pd.DataFrame(rows, columns=["BPsite", "readID", "BPType", "mapQ"])
-    if len(clip_df):
-        clip_df["Site"] = [encode_site(s, offsets) for s in clip_df.BPsite]
-    else:
-        clip_df["Site"] = []
-    clip_df["DataLabel"] = data_label
+    rows = [r.split("|") + [encode_site(r.split("|")[0], offsets),
+                            data_label] for r in records]
+    clip_df = tb.from_rows(rows, CLIP_COLS)
+    bpt = clip_df["BPType"]
     return dict(
         del_bp=del_bp, ins_bp=ins_bp,
-        clip_others=clip_df[clip_df.BPType.isin(["DUP", "DEL"])],
-        clip_inv=clip_df[clip_df.BPType == "INV"],
-        clip_tra=clip_df[clip_df.BPType == "TRA"],
+        clip_others=tb.take(clip_df, np.isin(bpt, ["DUP", "DEL"])),
+        clip_inv=tb.take(clip_df, bpt == "INV"),
+        clip_tra=tb.take(clip_df, bpt == "TRA"),
     )
 
 
@@ -153,7 +159,8 @@ def _read_span_sites(cigar: str, aln_start: int, win_start: int, win_end: int):
 def fetch_span_reads(table: AlignmentTable, chrom: str, start: int, end: int,
                      mapq_cutoff: int = 5):
     """FetchSpanReadDf equivalent (:374-389): spanning reads of [start, end]
-    with their on-read window length.  Returns DataFrame(read -> Length).
+    with their on-read window length.  Returns {read: Length}, reads in
+    sorted order.
 
     The per-record window-boundary walk runs as one native batch call
     (span_sites_batch) when the C++ scanner is available; the Python walk
@@ -161,7 +168,7 @@ def fetch_span_reads(table: AlignmentTable, chrom: str, start: int, end: int,
     idx = table.fetch_idx(chrom, start, end)
     idx = idx[table.mapq[idx] >= mapq_cutoff] if len(idx) else idx
     if len(idx) == 0:
-        return pd.DataFrame({"Length": pd.Series({}, dtype=np.int64)})
+        return {}
     starts = table.start[idx].astype(np.int64)
     try:
         from ..native.bam import span_sites
@@ -186,9 +193,7 @@ def fetch_span_reads(table: AlignmentTable, chrom: str, start: int, end: int,
     np.minimum.at(s5m, inv, s5s)
     np.maximum.at(s3m, inv, s3s)
     keep = (rs <= start) & (re_ >= end)
-    return pd.DataFrame({"Length": pd.Series((s3m - s5m)[keep],
-                                             index=uniq[keep],
-                                             dtype=np.int64)})
+    return dict(zip(uniq[keep].tolist(), (s3m - s5m)[keep].tolist()))
 
 
 def rough_compare(t_table, n_table, chrom: str, start: int, end: int,
@@ -199,12 +204,13 @@ def rough_compare(t_table, n_table, chrom: str, start: int, end: int,
     e = end + flank
     tdf = fetch_span_reads(t_table, chrom, s, e, mapq_cutoff=cutoff)
     ndf = fetch_span_reads(n_table, chrom, s, e, mapq_cutoff=0)
+    t_len = np.fromiter(tdf.values(), np.int64, len(tdf))
     if len(ndf) == 0:
         n_hit = 0
     elif window_type == "DEL":
-        n_hit = int((tdf.Length < ndf.Length.min() - offset).sum())
+        n_hit = int((t_len < min(ndf.values()) - offset).sum())
     else:
-        n_hit = int((tdf.Length > ndf.Length.max() + offset).sum())
+        n_hit = int((t_len > max(ndf.values()) + offset).sum())
     label = "CandidateSom" if n_hit >= 3 else "GermlineWindow"
     return (f"{chrom}\t{start}\t{end}\t{len(tdf)}\t{len(ndf)}\t"
             f"{window_type}\t{label}")
@@ -214,113 +220,135 @@ def rough_compare(t_table, n_table, chrom: str, start: int, end: int,
 # DBSCAN somatic cluster selection
 # ---------------------------------------------------------------------------
 
-def decide_with_dbscan(df: pd.DataFrame, eps: float = 500.0,
+def decide_with_dbscan(df: dict, eps: float = 500.0,
                        min_samples: int = 3, aim_label: str = "Tumor"):
     """DecisionWithDBSCAN (:437-447): cluster 2-D sites, keep clusters whose
-    members are all `aim_label` with >= min_samples members."""
-    if len(df) == 0:
-        out = df.copy()
-        out["labels"] = pd.Series(dtype=np.int64)
+    members are all `aim_label` with >= min_samples members.  Returns the
+    kept rows (CLIP_COLS + labels), ordered by cluster label."""
+    if tb.n_rows(df) == 0:
+        out = dict(df)
+        out["labels"] = np.empty(0, np.int64)
         return out
-    data = np.vstack(df.Site.to_numpy())
-    labels = dbscan_labels(data, eps=eps, min_samples=min_samples)
-    df = df.copy()
-    df["labels"] = labels
-    df = df[df.labels != -1]
-    keep = []
-    for lab, g in df.groupby("labels"):
-        if (g.DataLabel == aim_label).all() and len(g) >= min_samples:
-            keep.append(lab)
-    return df[df.labels.isin(keep)].sort_values("labels", kind="stable")
+    labels = dbscan_labels(np.vstack(df["Site"]), eps=eps,
+                           min_samples=min_samples)
+    df = dict(df, labels=np.asarray(labels, np.int64))
+    df = tb.take(df, df["labels"] != -1)
+    keep = [lab for lab, rows in tb.group_rows(df["labels"])
+            if (df["DataLabel"][rows] == aim_label).all()
+            and len(rows) >= min_samples]
+    df = tb.take(df, np.isin(df["labels"], keep))
+    return tb.take(df, np.argsort(df["labels"], kind="stable"))
 
 
 # ---------------------------------------------------------------------------
 # bp merge -> candidate windows
 # ---------------------------------------------------------------------------
 
-def _merge_bp_windows(bp_df: pd.DataFrame, svtype: str, dist: int = 200,
-                      min_reads: int = 4) -> pd.DataFrame:
+INNER_COLS = ["chrom", "start", "end", "count", "reads", "type"]
+LC_COLS = ["chrom", "start", "end", "reads", "count"]
+SPAN_COLS = ["labels", "chrom", "start", "end", "BPType", "readID"]
+
+
+def _merge_bp_windows(bp_df: dict, svtype: str, dist: int = 200,
+                      min_reads: int = 4) -> list[list]:
     """`bedtools merge -d 200 -c 4,4 -o count_distinct,distinct` + awk $4>3
-    (:464-467).  Returns DataFrame(chrom,start,end,count,reads,type)."""
+    (:464-467).  Returns rows [chrom, start, end, count, reads, type]."""
     rows = []
-    if len(bp_df):
-        for chrom in sorted(bp_df.chrom.unique()):
-            g = bp_df[bp_df.chrom == chrom]
-            ms, me, gid, order = iv.merge(g.ref_start.to_numpy(),
-                                          g.ref_end.to_numpy(), dist=dist)
-            names = g.read_id.to_numpy()[order]
-            for k in range(len(ms)):
-                rd = sorted(set(names[gid == k]))
-                if len(rd) >= min_reads:
-                    rows.append([chrom, int(ms[k]), int(me[k]), len(rd),
-                                 ",".join(rd), svtype])
-    return pd.DataFrame(rows, columns=["chrom", "start", "end", "count",
-                                       "reads", "type"])
+    for chrom, idx in tb.group_rows(bp_df["chrom"].astype(str)):
+        idx = np.sort(idx)
+        ms, me, gid, order = iv.merge(bp_df["ref_start"][idx],
+                                      bp_df["ref_end"][idx], dist=dist)
+        names = bp_df["read_id"][idx][order]
+        for k in range(len(ms)):
+            rd = sorted(set(names[gid == k]))
+            if len(rd) >= min_reads:
+                rows.append([str(chrom), int(ms[k]), int(me[k]), len(rd),
+                             ",".join(rd), svtype])
+    return rows
 
 
-def _lc_candidates(repeat_bed: str, ins_bp: pd.DataFrame) -> pd.DataFrame:
+def _read_bed3(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(chrom, start, end) columns of a bed file."""
+    chrom, start, end = [], [], []
+    with open(path) as f:
+        for line in f:
+            p = line.rstrip("\n").split("\t")
+            if len(p) >= 3:
+                chrom.append(p[0])
+                start.append(int(p[1]))
+                end.append(int(p[2]))
+    return (np.array(chrom, dtype=object), np.array(start, np.int64),
+            np.array(end, np.int64))
+
+
+def _lc_candidates(repeat_bed: str, ins_bp: dict) -> list[list]:
     """RepeatMasker windows holding INS breakpoints (:468-469, 578-584):
     intersect repeat windows with raw tumor INS bps, group by window, keep
     windows with >=3 supporting bp records (reads column joined verbatim,
-    duplicates included, as the reference's groupby-join does)."""
+    duplicates included, as the reference's groupby-join does).
+    Returns rows [chrom, start, end, reads, count]."""
     rows = []
-    if len(ins_bp) == 0 or not repeat_bed or not os.path.exists(repeat_bed):
-        return pd.DataFrame(columns=["chrom", "start", "end", "reads", "count"])
-    rep = pd.read_csv(repeat_bed, sep="\t", header=None, usecols=[0, 1, 2],
-                      names=["chrom", "start", "end"])
-    for chrom in sorted(rep.chrom.unique()):
-        rsub = rep[rep.chrom == chrom]
-        isub = ins_bp[ins_bp.chrom == chrom]
-        if len(isub) == 0:
+    if tb.n_rows(ins_bp) == 0 or not repeat_bed \
+            or not os.path.exists(repeat_bed):
+        return rows
+    r_chrom, r_start, r_end = _read_bed3(repeat_bed)
+    i_chrom = ins_bp["chrom"].astype(object)
+    for chrom in sorted(set(r_chrom.tolist())):
+        rsel = np.flatnonzero(r_chrom == chrom)
+        isel = np.flatnonzero(i_chrom == chrom)
+        if len(isel) == 0:
             continue
-        ai, bi, _ = iv.overlap_pairs(rsub.start.to_numpy(), rsub.end.to_numpy(),
-                                     isub.ref_start.to_numpy(),
-                                     np.maximum(isub.ref_end.to_numpy(),
-                                                isub.ref_start.to_numpy() + 1))
+        rs, ie = ins_bp["ref_start"][isel], ins_bp["ref_end"][isel]
+        ai, bi, _ = iv.overlap_pairs(r_start[rsel], r_end[rsel], rs,
+                                     np.maximum(ie, rs + 1))
         if len(ai) == 0:
             continue
-        names = isub.read_id.to_numpy()
-        g = pd.DataFrame({"wi": ai, "read": names[bi]})
-        for wi, gg in g.groupby("wi"):
-            reads = ",".join(gg.read)
-            if len(gg) >= 3:
-                r = rsub.iloc[int(wi)]
-                rows.append([r.chrom, int(r.start), int(r.end), reads, len(gg)])
-    return pd.DataFrame(rows, columns=["chrom", "start", "end", "reads", "count"])
+        names = ins_bp["read_id"][isel]
+        for wi, pairs in tb.group_rows(np.asarray(ai)):
+            if len(pairs) >= 3:
+                w = rsel[int(wi)]
+                rows.append([chrom, int(r_start[w]), int(r_end[w]),
+                             ",".join(names[np.asarray(bi)[np.sort(pairs)]]),
+                             len(pairs)])
+    return rows
 
 
-def _cluster_spans(filtered: pd.DataFrame, offsets) -> pd.DataFrame:
+def _cluster_spans(filt: dict, offsets) -> list[list]:
     """Per-DBSCAN-cluster representative span (:480-486): chrom + min BP1
     position as start, min BP2 position as end (min, not max — replicated),
-    first BPType, distinct reads."""
+    first BPType, distinct reads.  Rows as SPAN_COLS."""
     rows = []
-    for lab, g in filtered.groupby("labels"):
-        sortbp = [sort_breakpoint(s, offsets) for s in g.BPsite]
+    for lab, idx in tb.group_rows(filt["labels"]):
+        sortbp = [sort_breakpoint(s, offsets) for s in filt["BPsite"][idx]]
         bp1 = [x[0] for x in sortbp]
         bp2 = [x[1] for x in sortbp]
         chrom = bp1[0].split(":")[0]
         start = min(int(x.split(":")[-1]) for x in bp1)
         end = min(int(x.split(":")[-1]) for x in bp2)
-        rows.append([lab, chrom, start, end, g.BPType.iloc[0],
-                     ",".join(sorted(set(g.readID)))])
-    return pd.DataFrame(rows, columns=["labels", "chrom", "start", "end",
-                                       "BPType", "readID"])
+        rows.append([int(lab), chrom, start, end, filt["BPType"][idx[0]],
+                     ",".join(sorted(set(filt["readID"][idx])))])
+    return rows
 
 
-def _reciprocal_hits(a: pd.DataFrame, b: pd.DataFrame, frac=0.5):
-    """Pairs of (a_idx, b_idx) overlapping with `-f frac -r` semantics."""
+def _reciprocal_hits(a: list, b: list, frac=0.5):
+    """Pairs of (a_idx, b_idx) of rows [chrom, start, end, ...] overlapping
+    with `-f frac -r` semantics; chromosomes in sorted order."""
     hits = []
-    if len(a) == 0 or len(b) == 0:
+    if not a or not b:
         return hits
-    for chrom in sorted(set(a.chrom) & set(b.chrom)):
-        am = a[a.chrom == chrom]
-        bm = b[b.chrom == chrom]
-        ai, bi, ov = iv.overlap_pairs(am.start.to_numpy(), am.end.to_numpy(),
-                                      bm.start.to_numpy(), bm.end.to_numpy())
-        ai, bi, ov = iv.reciprocal_filter(
-            am.start.to_numpy(), am.end.to_numpy(), bm.start.to_numpy(),
-            bm.end.to_numpy(), ai, bi, ov, frac)
-        hits.extend((am.index[x], bm.index[y]) for x, y in zip(ai, bi))
+    a_c = np.array([r[0] for r in a], dtype=object)
+    b_c = np.array([r[0] for r in b], dtype=object)
+    a_s = np.array([int(r[1]) for r in a], np.int64)
+    a_e = np.array([int(r[2]) for r in a], np.int64)
+    b_s = np.array([int(r[1]) for r in b], np.int64)
+    b_e = np.array([int(r[2]) for r in b], np.int64)
+    for chrom in sorted(set(a_c.tolist()) & set(b_c.tolist())):
+        am = np.flatnonzero(a_c == chrom)
+        bm = np.flatnonzero(b_c == chrom)
+        ai, bi, ov = iv.overlap_pairs(a_s[am], a_e[am], b_s[bm], b_e[bm])
+        ai, bi, ov = iv.reciprocal_filter(a_s[am], a_e[am], b_s[bm],
+                                          b_e[bm], ai, bi, ov, frac)
+        hits.extend((int(am[x]), int(bm[y])) for x, y in zip(ai, bi))
     return hits
 
 
@@ -345,88 +373,77 @@ def find_candidate_sv_windows(t_table: AlignmentTable, n_table: AlignmentTable,
     cand_del = _merge_bp_windows(tum["del_bp"], "DEL")
     cand_ins = _merge_bp_windows(tum["ins_bp"], "INS")
     cand_lc = _lc_candidates(repeat_bed, tum["ins_bp"])
-    _write_bed(cand_del, f"{savedir}/CandidateDEL.tumor.merged.bed")
-    _write_bed(cand_ins, f"{savedir}/CandidateINS.tumor.merged.bed")
-    _write_bed(cand_lc, f"{savedir}/CandidateLC.tumor.merge.bed")
+    _write_rows(cand_del, f"{savedir}/CandidateDEL.tumor.merged.bed")
+    _write_rows(cand_ins, f"{savedir}/CandidateINS.tumor.merged.bed")
+    _write_rows(cand_lc, f"{savedir}/CandidateLC.tumor.merge.bed")
 
     # --- CLIP DUP/DEL clusters -> large-SV candidates ---
-    others = pd.concat([tum["clip_others"], nor["clip_others"]],
-                       ignore_index=True)
+    others = tb.concat([tum["clip_others"], nor["clip_others"]], CLIP_COLS)
     filt = decide_with_dbscan(others, eps, min_samples)
     # single BPType + >=3 distinct reads per cluster (:476-479)
-    keep_labels = [lab for lab, g in filt.groupby("labels")
-                   if g.BPType.nunique() == 1 and g.readID.nunique() >= 3]
-    filt = filt[filt.labels.isin(keep_labels)]
-    spans = _cluster_spans(filt, offsets) if len(filt) else pd.DataFrame(
-        columns=["labels", "chrom", "start", "end", "BPType", "readID"])
+    keep_labels = [lab for lab, idx in tb.group_rows(filt["labels"])
+                   if len(set(filt["BPType"][idx])) == 1
+                   and len(set(filt["readID"][idx])) >= 3]
+    filt = tb.take(filt, np.isin(filt["labels"], keep_labels))
+    spans = _cluster_spans(filt, offsets) if tb.n_rows(filt) else []
 
     # good/bad span classification (:490-499); both cutoffs default to 5
     good, bad = [], []
-    for _, row in spans.iterrows():
-        t_span = fetch_span_reads(t_table, row.chrom,
-                                  max(row.start - 50, 0), row.end + 50)
-        n_span = fetch_span_reads(n_table, row.chrom,
-                                  max(row.start - 50, 0), row.end + 50)
-        sup = np.intersect1d(row.readID.split(","), t_span.index.to_numpy())
-        (good if (sup.shape[0] >= 3 and len(n_span) >= 3) else bad).append(row)
-    good = pd.DataFrame(good, columns=spans.columns)
-    bad = pd.DataFrame(bad, columns=spans.columns)
+    for row in spans:
+        _lab, chrom, start, end, _bpt, read_ids = row
+        t_span = fetch_span_reads(t_table, chrom, max(start - 50, 0),
+                                  end + 50)
+        n_span = fetch_span_reads(n_table, chrom, max(start - 50, 0),
+                                  end + 50)
+        sup = set(read_ids.split(",")) & set(t_span)
+        (good if (len(sup) >= 3 and len(n_span) >= 3) else bad).append(row)
 
     span_windows: list[list] = []   # rows of CandidateSpan.tumor.merged.bed
 
-    def handle_type(bptype: str, inner: pd.DataFrame, inner_name: str):
+    def handle_type(bptype: str, inner: list[list]) -> list[list]:
         """Large DEL vs inner DEL / large DUP vs inner INS (:500-567).
-        Returns the cluster table for the InterALNSVs writer."""
-        g = good[good.BPType == bptype][["chrom", "start", "end", "BPType",
-                                         "readID"]].reset_index(drop=True)
-        b = bad[bad.BPType == bptype][["chrom", "start", "end", "BPType",
-                                       "readID"]]
-        if len(g) == 0:
+        Returns the cluster rows [chrom, start, end, BPType, readID] for
+        the InterALNSVs writer."""
+        g = [r[1:] for r in good if r[4] == bptype]
+        b = [r[1:] for r in bad if r[4] == bptype]
+        if not g:
             # no good-span clusters: all inner windows proceed (:523-525, :557-559)
-            span_windows.extend(inner.values.tolist())
+            span_windows.extend(inner)
             return b
-        hits = _reciprocal_hits(g, inner.rename(
-            columns={"count": "cnt"})[["chrom", "start", "end"]], 0.5)
+        hits = _reciprocal_hits(g, inner, 0.5)
         hit_g = {x for x, _ in hits}
-        no_hit = g.loc[[i for i in g.index if i not in hit_g]]
-        large = pd.concat([no_hit, b], axis=0)
+        large = [r for i, r in enumerate(g) if i not in hit_g] + b
         if hits:
             inter_rows = []
             for gi, bi in hits:
-                grow = g.loc[gi]
-                irow = inner.loc[bi]
-                start = min(grow.start, irow.start)
+                grow, irow = g[gi], inner[bi]
+                start = min(grow[1], irow[1])
                 # end rule replicates :515/:549 (condition on a.start vs b.end)
-                end = grow.end if grow.start >= irow.end else irow.end
-                reads = sorted(set(grow.readID.split(",") +
-                                   irow.reads.split(",")))
-                inter_rows.append([grow.chrom, int(start), int(end),
-                                   len(reads), ",".join(reads), grow.BPType])
+                end = grow[2] if grow[1] >= irow[2] else irow[2]
+                reads = sorted(set(grow[4].split(",") + irow[4].split(",")))
+                inter_rows.append([grow[0], int(start), int(end),
+                                   len(reads), ",".join(reads), grow[3]])
             span_windows.extend(inter_rows)
             # inner windows overlapping ANY merged window are subsumed
             # (`intersect -a inner -b merged -wa -v`, :520/:554)
-            inter_df = pd.DataFrame(
-                [(r[0], r[1], r[2]) for r in inter_rows],
-                columns=["chrom", "start", "end"])
-            for chrom in sorted(inner.chrom.unique()):
-                im = inner[inner.chrom == chrom]
-                mm = inter_df[inter_df.chrom == chrom]
-                mask = iv.any_overlap_mask(im.start.to_numpy(),
-                                           im.end.to_numpy(),
-                                           mm.start.to_numpy(),
-                                           mm.end.to_numpy())
-                span_windows.extend(im[~mask].values.tolist())
+            for chrom in sorted({r[0] for r in inner}):
+                im = [r for r in inner if r[0] == chrom]
+                mm = [r for r in inter_rows if r[0] == chrom]
+                mask = iv.any_overlap_mask(
+                    np.array([r[1] for r in im], np.int64),
+                    np.array([r[2] for r in im], np.int64),
+                    np.array([r[1] for r in mm], np.int64),
+                    np.array([r[2] for r in mm], np.int64))
+                span_windows.extend(r for r, m in zip(im, mask) if not m)
         else:
             if bptype == "DEL":
-                span_windows.extend(inner.values.tolist())
+                span_windows.extend(inner)
             # DUP branch: reference cats a never-written file (:556) — no-op
         return large
 
-    # inner candidate tables share the span-window row shape
-    inner_del = cand_del.rename(columns={"type": "BPType"})
-    inner_ins = cand_ins.rename(columns={"type": "BPType"})
-    large_del = handle_type("DEL", inner_del, "DEL")
-    large_dup = handle_type("DUP", inner_ins, "INS")
+    # inner candidate rows share the span-window row shape
+    large_del = handle_type("DEL", cand_del)
+    large_dup = handle_type("DUP", cand_ins)
 
     large_del_path = f"{savedir}/CandidateLargeDEL.tumor.merged.decision.bed"
     large_dup_path = f"{savedir}/CandidateDUP.tumor.merged.decision.bed"
@@ -442,9 +459,9 @@ def find_candidate_sv_windows(t_table: AlignmentTable, n_table: AlignmentTable,
         counts = np.array(line.split("\t")[3:5], dtype=int)
         if counts.min() >= 3 and counts.min() <= 500:
             denovo_rows.append(line)
-    for _, row in cand_lc.iterrows():
-        line = rough_compare(t_table, n_table, row.chrom, int(row.start),
-                             int(row.end), "INS")
+    for row in cand_lc:
+        line = rough_compare(t_table, n_table, row[0], int(row[1]),
+                             int(row[2]), "INS")
         counts = np.array(line.split("\t")[3:5], dtype=int)
         if counts.min() >= 3 and counts.min() <= 500:
             lc_rows.append(line)
@@ -461,23 +478,24 @@ def find_candidate_sv_windows(t_table: AlignmentTable, n_table: AlignmentTable,
 
     # final merge: LC representation preferred on reciprocal-0.5 overlap,
     # then symmetric difference, then whole-line `sort -u` (:619-625)
-    lc_df = _rows_to_df(lc_som)
-    dn_df = _rows_to_df(denovo_som)
-    hits = _reciprocal_hits(lc_df, dn_df, 0.5)
+    lc_rows3 = [l.split("\t") for l in lc_som]
+    dn_rows3 = [l.split("\t") for l in denovo_som]
+    hits = _reciprocal_hits(lc_rows3, dn_rows3, 0.5)
     lc_hit = {x for x, _ in hits}
     dn_hit = {y for _, y in hits}
     final = ([lc_som[i] for i in sorted(lc_hit)]
-             + [lc_som[i] for i in lc_df.index if i not in lc_hit]
-             + [denovo_som[i] for i in dn_df.index if i not in dn_hit])
+             + [lc_som[i] for i in range(len(lc_som)) if i not in lc_hit]
+             + [denovo_som[i] for i in range(len(denovo_som))
+                if i not in dn_hit])
     final = sorted(set(final))
     somatic_path = f"{savedir}/CandidateSpan.tumor.merged.decision.somatic.bed"
     _write_lines(final, somatic_path)
 
     # --- INV / TRA clusters (:626-634) ---
-    inv = decide_with_dbscan(pd.concat([tum["clip_inv"], nor["clip_inv"]],
-                                       ignore_index=True), eps, min_samples)
-    tra = decide_with_dbscan(pd.concat([tum["clip_tra"], nor["clip_tra"]],
-                                       ignore_index=True), eps, min_samples)
+    inv = decide_with_dbscan(tb.concat([tum["clip_inv"], nor["clip_inv"]],
+                                       CLIP_COLS), eps, min_samples)
+    tra = decide_with_dbscan(tb.concat([tum["clip_tra"], nor["clip_tra"]],
+                                       CLIP_COLS), eps, min_samples)
     inv_path = f"{savedir}/CandidateINV.tumor.merged.decision.bed"
     tra_path = f"{savedir}/CandidateTRA.tumor.merged.decision.bed"
     _write_cluster_csv(inv, inv_path)
@@ -490,17 +508,8 @@ def find_candidate_sv_windows(t_table: AlignmentTable, n_table: AlignmentTable,
 _DEC_HEADER = "chrom\tstart\tend\tTumorSpan\tNormalSpan\twindowType\twindowLabel"
 
 
-def _rows_to_df(rows: list[str]) -> pd.DataFrame:
-    if not rows:
-        return pd.DataFrame(columns=["chrom", "start", "end"])
-    parts = [r.split("\t") for r in rows]
-    return pd.DataFrame({"chrom": [p[0] for p in parts],
-                         "start": [int(p[1]) for p in parts],
-                         "end": [int(p[2]) for p in parts]})
-
-
-def _write_bed(df: pd.DataFrame, path: str):
-    df.to_csv(path, sep="\t", header=False, index=False)
+def _write_rows(rows: list[list], path: str):
+    _write_lines(["\t".join(tb.fmt(v) for v in r) for r in rows], path)
 
 
 def _write_lines(lines: list[str], path: str):
@@ -509,23 +518,28 @@ def _write_lines(lines: list[str], path: str):
             f.write(l + "\n")
 
 
-def _write_cluster_decision(filt: pd.DataFrame, large: pd.DataFrame, path: str):
+def _write_cluster_decision(filt: dict, large: list[list], path: str):
     """Cluster-level rows for clusters whose read set appears in `large`
     (:526-531, 562-567), the file the InterALNSVs writer consumes."""
-    if len(large) == 0 or len(filt) == 0:
-        _write_cluster_csv(filt.iloc[0:0] if len(filt) else filt, path)
+    if not large or tb.n_rows(filt) == 0:
+        _write_cluster_csv(tb.take(filt, np.zeros(tb.n_rows(filt), bool)),
+                           path)
         return
-    reads = set(large.readID)
-    spans_idx = [lab for lab, g in filt.groupby("labels")
-                 if ",".join(sorted(set(g.readID))) in reads]
-    _write_cluster_csv(filt[filt.labels.isin(spans_idx)], path)
+    reads = {r[4] for r in large}
+    spans_idx = [lab for lab, idx in tb.group_rows(filt["labels"])
+                 if ",".join(sorted(set(filt["readID"][idx]))) in reads]
+    _write_cluster_csv(tb.take(filt, np.isin(filt["labels"], spans_idx)),
+                       path)
 
 
-def _write_cluster_csv(df: pd.DataFrame, path: str):
-    cols = ["BPsite", "readID", "BPType", "Site", "DataLabel", "labels"]
-    if len(df) == 0:
-        pd.DataFrame(columns=cols).to_csv(path, sep="\t", index=False)
-        return
-    out = df.copy()
-    out["Site"] = [f"[{int(s[0])} {int(s[1])}]" for s in out.Site]
-    out[cols].to_csv(path, sep="\t", index=False)
+CLUSTER_CSV_COLS = ["BPsite", "readID", "BPType", "Site", "DataLabel",
+                    "labels"]
+
+
+def _write_cluster_csv(df: dict, path: str):
+    out = dict(df)
+    out["Site"] = np.array([f"[{int(s[0])} {int(s[1])}]"
+                            for s in df.get("Site", [])], dtype=object)
+    if tb.n_rows(df) == 0:
+        out = tb.concat([], CLUSTER_CSV_COLS)
+    tb.write_tsv(path, out, CLUSTER_CSV_COLS)

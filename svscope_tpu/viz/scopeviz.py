@@ -27,6 +27,18 @@ BASE_COLORS = {0: "#4daf4a", 1: "#e41a1c", 2: "#377eb8", 3: "#ff7f00",
                4: "#f0f0f0"}
 
 
+def _viz_import(name: str):
+    """Import a package of the 'viz' extra, or say how to get it: the
+    engine itself runs without matplotlib and networkx."""
+    import importlib
+    try:
+        return importlib.import_module(name)
+    except ImportError as exc:
+        raise ImportError(
+            f"{name} is needed by the viz subcommand; install the 'viz' "
+            "extra: pip install 'svscope-tpu[viz]'") from exc
+
+
 def _msa_image(enc: np.ndarray) -> np.ndarray:
     img = np.zeros(enc.shape + (3,))
     for code, hexc in BASE_COLORS.items():
@@ -39,9 +51,9 @@ def draw_window(win: WindowData, out_path: str, hcutoff: int = 3,
                 scutoff: float = 0.05, t_label: str = "tumor",
                 graph: bool = True, em_dtype=None):
     """Render the six-panel figure for one window; returns out_path."""
-    import matplotlib
+    matplotlib = _viz_import("matplotlib")
     matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _viz_import("matplotlib.pyplot")
 
     if len(win.sequences) < 2:
         raise ValueError(f"window {win.record!r} has no spanning reads "
@@ -119,7 +131,7 @@ def _draw_graph_genome(ax, enc, labels):
     """Graph-genome panel: POA of per-cluster consensuses, segmented into
     shared/variant blocks rendered as a DiGraph (ShowConsensus
     equivalent)."""
-    import networkx as nx
+    nx = _viz_import("networkx")
 
     cons = []
     for L in np.unique(labels):

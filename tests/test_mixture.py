@@ -414,3 +414,52 @@ def test_ward_init_labels_wrapper_equals_oracle():
         if n >= 2:
             sim = pairwise_identity(x)
             assert (ward_init_labels(x, 9, sim=sim) == want).all()
+
+
+def _dot_precisions(jaxpr):
+    """precision of every dot_general in a jaxpr, sub-jaxprs included."""
+    from jax.extend import core
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for v in eqn.params.values():
+            subs = v if isinstance(v, (tuple, list)) else (v,)
+            for sub in subs:
+                if isinstance(sub, core.ClosedJaxpr):
+                    out += _dot_precisions(sub.jaxpr)
+                elif isinstance(sub, core.Jaxpr):
+                    out += _dot_precisions(sub)
+    return out
+
+
+@pytest.mark.parametrize("path", ["folded", "per_k", "mesh"])
+def test_em_dots_pinned_to_highest(path):
+    """Every dot of the EM paths whose results feed labels or BIC runs at
+    Precision.HIGHEST (a GPU would otherwise use TF32 for f32 dots)."""
+    import jax
+    import jax.numpy as jnp
+    import svscope_tpu.models.mixture as mx
+    f32 = jnp.float32
+    if path == "folded":
+        fn = lambda c, h: mx._em_folded_one(
+            c, h, jnp.int32(3), jnp.int32(8), f32(6), f32(0),
+            jnp.zeros(2, jnp.uint32), 4, f32)
+        args = (jnp.zeros((8, 6), jnp.int8), jnp.zeros((9, 8), jnp.int8))
+    elif path == "per_k":
+        fn = lambda x, g: mx._em_all_k_core(
+            x, jnp.ones(8, f32), g, jnp.ones((9, 9), bool), f32(8), f32(6),
+            f32(0), jax.random.split(jax.random.PRNGKey(0), 9), 4)
+        args = (jnp.zeros((8, 6, 5), f32), jnp.zeros((9, 8, 9), f32))
+    else:
+        from svscope_tpu.parallel.mesh import _local_em_scan
+        fn = lambda x, g: jax.vmap(
+            lambda *a: _local_em_scan(*a, nsteps=3), axis_name="mp")(
+            x[None], jnp.ones((1, 2, 8), f32), g[None],
+            jnp.ones((1, 2, 9), bool), jnp.full((1, 2), 8.0, f32))
+        args = (jnp.zeros((2, 8, 6, 5), f32), jnp.zeros((2, 8, 9), f32))
+    precs = _dot_precisions(jax.make_jaxpr(fn)(*args).jaxpr)
+    assert precs, "no dots found"
+    hi = jax.lax.Precision.HIGHEST
+    assert all(p is not None and all(q == hi for q in p) for p in precs), \
+        precs

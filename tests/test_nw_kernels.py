@@ -1,11 +1,7 @@
 import numpy as np
-import pytest
-import jax
 
 from svscope_tpu.ops.nw import (alignment_misscore, calculate_misscore,
                                 nw_align_stats, pick_misscore)
-
-ON_TPU = jax.default_backend() not in ("cpu",)
 
 
 def _random_pairs(rng, n, lmax):
@@ -34,29 +30,6 @@ def test_nw_stats_batch_parity():
     exp = [al - m for (_, m, al) in (nw_align_stats(a, b) for a, b in pairs)]
     got = misscore_batch(pairs)
     assert (np.array(exp) == got).all()
-
-
-def test_nw_pallas_parity():
-    # interpreter mode on CPU, compiled kernel on TPU
-    from svscope_tpu.ops.nw_pallas import nw_stats_pallas
-    rng = np.random.default_rng(1)
-    L = 128
-    pairs = _random_pairs(rng, 16, L)
-    B = len(pairs)
-    ac = np.zeros((B, L), np.int32)
-    bc = np.zeros((B, L), np.int32)
-    la = np.zeros(B, np.int32)
-    lb = np.zeros(B, np.int32)
-    for k, (a, b) in enumerate(pairs):
-        ac[k, :len(a)] = np.frombuffer(a.encode(), np.uint8)
-        bc[k, :len(b)] = np.frombuffer(b.encode(), np.uint8)
-        la[k], lb[k] = len(a), len(b)
-    s, m, al = [np.array(x) for x in nw_stats_pallas(
-        ac, bc, la, lb, L, interpret=not ON_TPU)]
-    for k, (a, b) in enumerate(pairs):
-        assert nw_align_stats(a, b) == (s[k], m[k], al[k])
-    with pytest.raises(ValueError):
-        nw_stats_pallas(ac, bc, la, lb, 512)
 
 
 def test_edit_distance_matches_levenshtein():

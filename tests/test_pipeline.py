@@ -2,7 +2,6 @@
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 
 from svscope_tpu.cli import main
@@ -67,6 +66,7 @@ def test_inner_vcf_record(full_run):
 
 
 def test_rf_features_finite(full_run):
+    import pandas as pd
     d, ref, tumor, normal, savedir = full_run
     rf = pd.read_csv(os.path.join(savedir, "RandomForestResult.tsv"), sep="\t")
     assert len(rf) == 1
@@ -174,3 +174,68 @@ def test_cli_friendly_missing_file_error(capsys):
                   "-r", "/no.fa", "-s", "/tmp/x"])
     err = capsys.readouterr().err
     assert "not found" in err
+
+
+MAIN_PATH_IMPORTS = r"""
+import importlib.metadata, json, os, sys, sysconfig
+sys.path[:0] = [{repo!r}, {tests!r}]
+site = sysconfig.get_paths()["purelib"]
+
+def third_party():
+    out = set()
+    for name, mod in list(sys.modules.items()):
+        f = getattr(mod, "__file__", None) or ""
+        if f.startswith(site):
+            out.add(name.split(".")[0])
+    return out
+
+import jax, numpy, scipy  # noqa: E401
+base = third_party()
+from synth import make_test_pair
+from svscope_tpu.cli import main
+d = {tmp!r}
+ref, tumor, normal, recs, _ = make_test_pair(d)
+rep = os.path.join(d, "rep.bed")
+open(rep, "w").close()
+before = third_party()
+main(["DataPrepare", "-D", rep, "-T", tumor, "-N", normal, "-t", "S",
+      "-n", "S", "-r", ref, "-s", os.path.join(d, "o"), "--selectwindows",
+      "--FullProcess"])
+main(["adjustVCF", "-s", os.path.join(d, "o")])
+print(json.dumps(sorted(third_party() - base)))
+"""
+
+
+def test_main_path_imports_only_jax_numpy_scipy(tmp_path):
+    """DataPrepare --selectwindows --FullProcess + adjustVCF through the
+    CLI loads no third-party package beyond JAX (and what JAX itself
+    loads), NumPy and SciPy — nothing a GPU host may lack."""
+    import json
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = MAIN_PATH_IMPORTS.format(repo=os.path.dirname(here), tests=here,
+                                    tmp=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    extra = json.loads(r.stdout.strip().splitlines()[-1])
+    assert extra == [], f"main path imported {extra}"
+
+
+@pytest.mark.parametrize("value,engine", [("host", False), ("xla", "xla"),
+                                          ("fused", "fused"),
+                                          ("pallas", None)])
+def test_device_poa_option(value, engine, capsys):
+    """--device-poa: 'host' (the default) is the C++ engine; 'pallas' is
+    no longer a choice."""
+    import argparse
+    from svscope_tpu.cli import _device_poa_arg
+    if engine is None:
+        with pytest.raises(SystemExit):
+            main(["localGraph", "--device-poa", value, "-w", "x", "-T", "x",
+                  "-N", "x", "-t", "S", "-n", "S", "-r", "x", "-s", "x"])
+        assert "invalid choice" in capsys.readouterr().err
+    else:
+        assert _device_poa_arg(argparse.Namespace(device_poa=value)) == engine

@@ -2,9 +2,8 @@
 
 The fused path must be indistinguishable from ops.poa.poa — the repo's
 spoa-semantics oracle for the reference's poa(seqs, 1) calls
-(/root/reference/src/DataScanner.py:207,213; DecisionMaker.py:160,171) —
-because the engine's backend auto-selection may route any window through
-it.  Shapes are kept to one or two (R, L, N) buckets so the CPU compile
+(reference src/DataScanner.py:207,213; DecisionMaker.py:160,171) —
+because `--device-poa fused` routes every window through it.  Shapes are kept to one or two (R, L, N) buckets so the CPU compile
 cost stays bounded.
 """
 import random
@@ -136,51 +135,26 @@ def test_fast_toposort_matches_reference_kahn():
             assert (f_rank[:n] == r_rank[:n]).all(), trial
 
 
-@pytest.mark.parametrize("engine", ["pallas", "pk"])
-def test_dispatch_build_pallas_shards_under_mesh(engine):
-    """With a dp mesh installed, the kernel engines ('pallas' per-round,
-    'pk' fully fused) must run under shard_map (a raw pallas_call cannot
-    be auto-partitioned by GSPMD) and produce results identical to the
-    unsharded xla build."""
-    import jax
-    from svscope_tpu.ops import poa_fused as pf
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_dispatch_build_pallas_shards_under_mesh(n_shards):
+    """With a dp mesh installed, the fused build's window axis shards over
+    the mesh (GSPMD partitions the XLA program along windows) and the
+    output is identical to the unsharded build and to the oracle."""
     from svscope_tpu.parallel import dataparallel as dpm
 
     rng = random.Random(17)
-    ncap, r_max, l_max, B = 129, 4, 64, 16
-    seqs_a = np.zeros((B, r_max, l_max), np.uint8)
-    lens_a = np.zeros((B, r_max), np.int32)
-    nseq_a = np.full(B, r_max, np.int32)
-    for b in range(B):
-        ref = [rng.randrange(4) for _ in range(24)]
-        for r in range(r_max):
-            row = list(ref)
-            if r % 2:
-                row[12:12] = [rng.randrange(4) for _ in range(3)]
-            seqs_a[b, r, :len(row)] = row
-            lens_a[b, r] = len(row)
-    base = jax.device_get(pf._dispatch_build(
-        seqs_a, lens_a, nseq_a, ncap=ncap, r_max=r_max, l_max=l_max,
-        engine="xla"))
+    windows = [window(rng, 4, 24, 0.05) for _ in range(8)]
+    base = fused_msa_batch(windows)
     try:
-        dpm.set_data_mesh(dpm.make_dp_mesh(2))
-        got = jax.device_get(pf._dispatch_build(
-            seqs_a, lens_a, nseq_a, ncap=ncap, r_max=r_max, l_max=l_max,
-            engine=engine, interpret=True))
+        dpm.set_data_mesh(dpm.make_dp_mesh(n_shards))
+        got = fused_msa_batch(windows)
         assert dpm.LAST_DISPATCH["sharded"] and \
-            dpm.LAST_DISPATCH["n_shards"] == 2
+            dpm.LAST_DISPATCH["n_shards"] == n_shards
     finally:
         dpm.set_data_mesh(None)
-    # chars/group_min compare on ACTIVE rows only: the pk kernel's masked
-    # writes land on the trash row by design, so inactive rows differ
-    nn = np.asarray(base[2])
-    for w in range(B):
-        for idx in (0, 1):
-            np.testing.assert_array_equal(
-                np.asarray(base[idx][w])[:nn[w]],
-                np.asarray(got[idx][w])[:nn[w]])
-    for a, b in zip(base[2:], got[2:]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert got == base
+    for seqs, g in zip(windows, got):
+        assert g == poa(seqs, 1)
 
 
 def test_non_acgtn_bases_fall_back():

@@ -1,21 +1,17 @@
-"""Parity tests for the Pallas POA wavefront kernel (ops/poa_pallas).
+"""Parity tests for the batched device POA aligner
+(ops/poa_device.align_batch, the `--device-poa xla` route).
 
-The kernel must produce the exact alignment (path, gaps, tie-breaks) and
-score of the XLA aligner (ops/poa_device.align_batch) — which is itself
-parity-exact with the native C++ engine and the NumPy oracle — on
-arbitrary POA graphs.  On CPU the kernel runs in interpreter mode; on TPU
-it compiles for real.
+The aligner must produce the exact alignment (path, gaps, tie-breaks) of
+the native C++ engine — itself parity-exact with the NumPy oracle — on
+arbitrary packed POA graphs, unsharded and under a ("dp",) data mesh.
+The gpu-marked case runs the compiled kernel on the card.
 """
 import numpy as np
 import pytest
-import jax
 import jax.numpy as jnp
 
 from svscope_tpu.native.poa import NativePoaGraph
 from svscope_tpu.ops import poa_device as pdev
-from svscope_tpu.ops.poa_pallas import align_batch_pallas, chain_flags
-
-ON_TPU = jax.default_backend() not in ("cpu",)
 
 
 def _build_cases(rng, n_windows, read_len, n_reads, with_svs=True):
@@ -66,144 +62,74 @@ def _pack(graphs, seqs, nb, lb):
     return packed, chars, preds, sinks, nn, sq, ln
 
 
+def _align(chars, preds, sinks, nn, sq, ln, lb):
+    return [np.array(x) for x in pdev.align_batch(
+        jnp.asarray(chars), jnp.asarray(preds), jnp.asarray(sinks),
+        jnp.asarray(nn), jnp.asarray(sq), jnp.asarray(ln), lb)]
+
+
 def _assert_parity(graphs, seqs, packed, chars, preds, sinks, nn, sq, ln,
-                   lb, interpret, vs_xla=False):
-    an1, as1, ke1, sc1 = [np.array(x) for x in align_batch_pallas(
-        chars, preds, sinks, nn, sq, ln, lb, interpret=interpret)]
+                   lb):
+    an, asp, ke, _sc = _align(chars, preds, sinks, nn, sq, ln, lb)
     for i in range(len(packed)):
-        a1 = pdev.unpack_alignment(an1[i], as1[i], int(ke1[i]), packed[i][4])
-        a0 = graphs[i].align_only(seqs[i])
-        assert a0 == a1, f"alignment mismatch window {i} vs native engine"
-    if vs_xla:
-        an0, as0, ke0, sc0 = [np.array(x) for x in pdev.align_batch(
-            jnp.asarray(chars), jnp.asarray(preds), jnp.asarray(sinks),
-            jnp.asarray(nn), jnp.asarray(sq), jnp.asarray(ln), lb)]
-        for i in range(len(packed)):
-            a0 = pdev.unpack_alignment(an0[i], as0[i], int(ke0[i]),
-                                       packed[i][4])
-            a1 = pdev.unpack_alignment(an1[i], as1[i], int(ke1[i]),
-                                       packed[i][4])
-            assert sc0[i] == sc1[i], f"score mismatch window {i}"
-            assert a0 == a1, f"alignment mismatch window {i} vs XLA"
+        got = pdev.unpack_alignment(an[i], asp[i], int(ke[i]), packed[i][4])
+        assert graphs[i].align_only(seqs[i]) == got, \
+            f"alignment mismatch window {i} vs native engine"
 
 
 def test_pallas_parity_interpret():
     rng = np.random.default_rng(7)
     graphs, seqs = _build_cases(rng, 9, 40, 6)
     packed, *arrs = _pack(graphs, seqs, 128, 64)
-    _assert_parity(graphs, seqs, packed, *arrs, 64, interpret=not ON_TPU)
+    _assert_parity(graphs, seqs, packed, *arrs, 64)
 
 
 def test_pallas_parity_chain_only():
-    """Backbone-only graphs (every row a chain row) take the branch-free
-    kernel specialization; output must match the native engine exactly."""
+    """Backbone-only graphs (every row has one predecessor, the previous
+    rank); output must match the native engine exactly."""
     rng = np.random.default_rng(13)
     graphs, seqs = _build_cases(rng, 8, 40, 0)
     packed, *arrs = _pack(graphs, seqs, 64, 64)
-    flags = chain_flags(arrs[1], arrs[3])
-    assert flags.all(), "test premise: backbone graphs are pure chains"
-    _assert_parity(graphs, seqs, packed, *arrs, 64, interpret=not ON_TPU)
+    preds = arrs[1]
+    assert (preds[:, 1:, 1] < 0).all(), "test premise: pure chains"
+    _assert_parity(graphs, seqs, packed, *arrs, 64)
 
 
-def test_chain_flags():
-    preds = np.full((1, 5, 8), -1, np.int32)
-    preds[0, 1, 0] = 0
-    preds[0, 2, 0] = 1
-    preds[0, 3, 0] = 0          # branch: skips rank 1/2
-    preds[0, 3, 1] = 2          # multi-pred
-    preds[0, 4, 0] = 3
-    f = chain_flags(preds, np.array([5]))
-    assert f.tolist() == [[1, 1, 1, 0, 1]]
-
-
-@pytest.mark.skipif(not ON_TPU, reason="compiled-kernel test requires TPU")
+@pytest.mark.gpu
 def test_pallas_parity_compiled_large():
+    """The aligner compiled for the card, at the bench bucket (256 nodes x
+    256 bp), against the native engine."""
     rng = np.random.default_rng(11)
     graphs, seqs = _build_cases(rng, 24, 150, 12)
     packed, *arrs = _pack(graphs, seqs, 256, 256)
-    _assert_parity(graphs, seqs, packed, *arrs, 256, interpret=False,
-                   vs_xla=True)
+    _assert_parity(graphs, seqs, packed, *arrs, 256)
 
 
 def test_pallas_dp_mesh_parity_interpret():
-    """align_batch_pallas with a ("dp",) data mesh installed shard_maps the
-    kernel over the mesh (interpret mode on CPU): outputs identical to the
-    unsharded call."""
+    """align_batch over inputs sharded on a ("dp",) data mesh (GSPMD
+    partitions the window axis): outputs identical to the unsharded
+    call."""
     from svscope_tpu.parallel import dataparallel as dpm
     rng = np.random.default_rng(17)
     B, N, L = 64, 16, 20
     chars = rng.integers(65, 68, (B, N)).astype(np.uint8)
     preds = np.full((B, N, 8), -1, np.int32)
     preds[:, 1:, 0] = np.arange(N - 1)
-    # a few branch rows so both kernel paths run
+    # a few branch rows so both predecessor shapes run
     preds[::3, 5, 1] = 2
     sinks = np.zeros((B, N), bool)
     sinks[:, -1] = True
     nn = np.full(B, N, np.int32)
     seqs = rng.integers(65, 68, (B, L)).astype(np.uint8)
     lens = np.full(B, L, np.int32)
-    args = (chars, preds, sinks, nn, seqs, lens, L)
-    base = [np.asarray(x) for x in align_batch_pallas(*args, interpret=True)]
+    args = (chars, preds, sinks, nn, seqs, lens)
+    base = [np.asarray(x) for x in pdev.align_batch(*args, L)]
     try:
         dpm.set_data_mesh(dpm.make_dp_mesh(8))
-        out = [np.asarray(x)
-               for x in align_batch_pallas(*args, interpret=True)]
+        dev = dpm.shard_batch(args)
+        assert dpm.LAST_DISPATCH["n_shards"] == 8
+        out = [np.asarray(x) for x in pdev.align_batch(*dev, L)]
     finally:
         dpm.set_data_mesh(None)
     for a, b in zip(base, out):
         assert (a == b).all()
-
-
-def test_pallas_int16_parity_interpret():
-    """The int16 variant (16 windows per grid step filling the (16, 128)
-    int16 tile — half the vreg traffic per DP row op) must match the
-    native engine AND the int32 kernel exactly, including scores."""
-    rng = np.random.default_rng(23)
-    graphs, seqs = _build_cases(rng, 16, 40, 6)
-    packed, *arrs = _pack(graphs, seqs, 128, 64)
-    chars, preds, sinks, nn, sq, ln = arrs
-    a32 = [np.array(x) for x in align_batch_pallas(
-        chars, preds, sinks, nn, sq, ln, 64, interpret=not ON_TPU)]
-    a16 = [np.array(x) for x in align_batch_pallas(
-        chars, preds, sinks, nn, sq, ln, 64, interpret=not ON_TPU,
-        int16_mode=True)]
-    for i in range(len(packed)):
-        g0 = graphs[i].align_only(seqs[i])
-        g16 = pdev.unpack_alignment(a16[0][i], a16[1][i], int(a16[2][i]),
-                                    packed[i][4])
-        assert g0 == g16, f"int16 alignment mismatch window {i}"
-        assert a32[3][i] == a16[3][i], f"score mismatch window {i}"
-
-
-def test_pallas_int16_score_bounds():
-    """Worst-case negative scores (fully divergent read vs long chain) stay
-    clear of the NEG16 sentinel: alignment still exact at the gated shape
-    ceiling shapes."""
-    rng = np.random.default_rng(29)
-    # divergent read: alignment is all mismatches/gaps -> most negative H
-    g = NativePoaGraph()
-    ref = "".join(rng.choice(list("ACGT"), 500))
-    g.add_sequence(ref)
-    read = "".join(rng.choice(list("ACGT"), 500))
-    packed = [g.pack(512, 8)]
-    chars = np.stack([packed[0][0]] * 16)
-    preds = np.stack([packed[0][1]] * 16)
-    sinks = np.stack([packed[0][2]] * 16)
-    nn = np.full(16, packed[0][3], np.int32)
-    sq = np.zeros((16, 512), np.uint8)
-    sq[:, :len(read)] = np.frombuffer(read.encode(), np.uint8)
-    ln = np.full(16, len(read), np.int32)
-    a16 = [np.array(x) for x in align_batch_pallas(
-        chars, preds, sinks, nn, sq, ln, 512, interpret=not ON_TPU,
-        int16_mode=True)]
-    a0 = g.align_only(read)
-    got = pdev.unpack_alignment(a16[0][0], a16[1][0], int(a16[2][0]),
-                                packed[0][4])
-    assert got == a0
-    with pytest.raises(ValueError):
-        align_batch_pallas(np.zeros((16, 2048), np.uint8),
-                           np.full((16, 2048, 8), -1, np.int32),
-                           np.zeros((16, 2048), bool),
-                           np.full(16, 4, np.int32),
-                           np.zeros((16, 8), np.uint8),
-                           np.full(16, 4, np.int32), 8, int16_mode=True)

@@ -1,7 +1,6 @@
 import os
 
 import numpy as np
-import pandas as pd
 import pytest
 
 from svscope_tpu.io.bam import AlignmentTable
@@ -138,11 +137,11 @@ def pair_dir(tmp_path_factory):
 def test_fetch_span_reads(pair_dir):
     d, (ref_path, tumor, normal, recs, ref) = pair_dir
     t = AlignmentTable.from_bam(tumor)
-    df = fetch_span_reads(t, "chr1", 950, 1150)
-    assert len(df) == 12
+    spans = fetch_span_reads(t, "chr1", 950, 1150)
+    assert len(spans) == 12
     # insertion carriers ~60bp longer
-    lens = df.Length.sort_values()
-    assert lens.iloc[-1] - lens.iloc[0] >= 55
+    lens = sorted(spans.values())
+    assert lens[-1] - lens[0] >= 55
 
 
 def test_rough_compare(pair_dir):
@@ -281,10 +280,12 @@ def test_native_breakpoints_match_python(pair_dir, tmp_path):
                              "-" if table.strand_rev[i] else "+",
                              table.cigar[i], out=py)
         py_df = pd.DataFrame(py.asarrays())
+        nat_df = pd.DataFrame(bp_native)
         cols = list(py_df.columns)
-        assert len(py_df) == len(bp_native) and len(py_df) > 0
+        assert list(nat_df.columns) == cols
+        assert len(py_df) == len(nat_df) and len(py_df) > 0
         a = sorted(map(tuple, py_df[cols].astype(str).values.tolist()))
-        b = sorted(map(tuple, bp_native[cols].astype(str).values.tolist()))
+        b = sorted(map(tuple, nat_df[cols].astype(str).values.tolist()))
         assert a == b
 
 

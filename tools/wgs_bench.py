@@ -104,7 +104,7 @@ def main():
     df = background_stats(table, windows)
     dt = time.time() - t0
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    cov = df["COV"].to_numpy(float)
+    cov = np.asarray(df["COV"], float)
     ok = np.isfinite(cov)
     print(f"background_stats: {dt:.1f}s for {len(windows):,} windows "
           f"({len(windows) / dt:,.0f} windows/s single host process), "
